@@ -1,12 +1,12 @@
 // TVC1 scalar oracle encoder/decoder (SURVEY.md §2.2, §4.3).
 //
 // An independent, trivially auditable C++ implementation of /root/repo/SPEC.md
-// used as the bit-exactness referee for every JAX/Pallas path (the reference
+// used as the bit-exactness referee for every JAX path (the reference
 // binary the task metadata expects was never mounted — SURVEY.md §0), and as
 // the single-core CPU baseline for bench.py's vs_baseline ratio.
 //
 // Deliberately plain scalar code: every formula is written exactly as SPEC.md
-// states it, with none of the TPU-side vectorization tricks, so disagreement
+// states it, with none of the device-side vectorization tricks, so disagreement
 // between this and the device paths localizes bugs immediately.
 //
 //   oracle encode <in.yuv> <out.tvc> <W> <H> <gop> <qp> <full|diamond|hier>
@@ -679,7 +679,7 @@ static void decode_frame(int w, int h, bool is_p, int base_qp,
 }
 
 // ----------------------------------------------------------- C library API --
-// Used by video_encoder_tpu/codec/native.py (ctypes) as the fast host
+// Used by video_encoder/codec/native.py (ctypes) as the fast host
 // entropy decoder: the serial bit-parsing stage of decode is byte-stream
 // bound and lives on the host (SURVEY.md §7.0 "Host does bytes, device does
 // math"); reconstruction can then run on-device from the parsed arrays.

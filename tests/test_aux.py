@@ -10,12 +10,12 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from video_encoder_tpu.codec import golden
-from video_encoder_tpu.codec.config import EncoderConfig
-from video_encoder_tpu.parallel.failover import (
+from video_encoder.codec import golden
+from video_encoder.codec.config import EncoderConfig
+from video_encoder.parallel.failover import (
     FaultInjector, GopFailure, encode_gops_with_recovery,
 )
-from video_encoder_tpu.pipeline.encoder import (
+from video_encoder.pipeline.encoder import (
     GoldenGopAdapter, encode_clip, encode_clip_resumable,
 )
 
@@ -58,7 +58,7 @@ def test_checkpoint_resume_byte_identical(tmp_path, rng):
 
 
 def test_checkpoint_config_mismatch(tmp_path, rng):
-    from video_encoder_tpu.pipeline import checkpoint as ckpt
+    from video_encoder.pipeline import checkpoint as ckpt
 
     cfg1 = EncoderConfig(width=48, height=32, gop_n=2, base_qp=27)
     cfg2 = EncoderConfig(width=48, height=32, gop_n=3, base_qp=27)
@@ -101,8 +101,8 @@ def test_failover_falls_back_to_survivor(rng):
 
 @pytest.mark.skipif(len(jax.devices()) < 4, reason="needs 4 fake devices")
 def test_ring_pipeline_equals_single(rng):
-    from video_encoder_tpu.parallel.ring import RingEncoder
-    from video_encoder_tpu.pipeline.gop_engine import GopEngine
+    from video_encoder.parallel.ring import RingEncoder
+    from video_encoder.pipeline.gop_engine import GopEngine
 
     d, t, h, w = 4, 3, 32, 48
     cfg = EncoderConfig(width=w, height=h, gop_n=t, base_qp=30, search="full")
@@ -127,8 +127,8 @@ def test_ring_pipeline_equals_single(rng):
 def test_ring_pipeline_unequal_streams(rng):
     """Drain/fill generalization: 3 streams of lengths 3/2/1 on a 4-device
     ring produce exactly the packets of per-stream single-device encodes."""
-    from video_encoder_tpu.parallel.ring import RingEncoder
-    from video_encoder_tpu.pipeline.gop_engine import GopEngine
+    from video_encoder.parallel.ring import RingEncoder
+    from video_encoder.pipeline.gop_engine import GopEngine
 
     d, h, w = 4, 32, 48
     lens = [3, 2, 1]
@@ -155,7 +155,7 @@ def test_stage_timer_and_eventlog():
     import io as _io
     import time
 
-    from video_encoder_tpu.utils.trace import EventLog, StageTimer
+    from video_encoder.utils.trace import EventLog, StageTimer
 
     t = StageTimer()
     with t.stage("read"):
@@ -179,8 +179,8 @@ def test_ring_pipeline_with_rate_control(rng, rc):
     """The ring hop carries RC state (qp, vbv fullness) with the recon, so
     rc='bitrate'/'vbv' streams follow the exact single-device trajectory
     (VERDICT r1 weak #3)."""
-    from video_encoder_tpu.parallel.ring import RingEncoder
-    from video_encoder_tpu.pipeline.gop_engine import GopEngine
+    from video_encoder.parallel.ring import RingEncoder
+    from video_encoder.pipeline.gop_engine import GopEngine
 
     d, t, h, w = 4, 4, 32, 48
     cfg = EncoderConfig(
@@ -255,7 +255,7 @@ def test_failover_catches_real_engine_errors(rng):
 def test_mux_invariants_raise(rng):
     import io as _io
 
-    from video_encoder_tpu.codec.bitstream import FramePacket, OrderedMux
+    from video_encoder.codec.bitstream import FramePacket, OrderedMux
 
     cfg = EncoderConfig(width=48, height=32, gop_n=2, base_qp=27)
     mux = OrderedMux(_io.BytesIO(), cfg, 3)
@@ -273,8 +273,8 @@ def test_mux_invariants_raise(rng):
 def test_resume_validates_byte_offset(tmp_path, rng):
     """A checkpoint pointing past the stream's end means lost data; resume
     must refuse instead of silently writing at a gap (VERDICT r1 weak #6)."""
-    from video_encoder_tpu.pipeline import checkpoint
-    from video_encoder_tpu.pipeline.bitstream_writer import open_stream_for_resume
+    from video_encoder.pipeline import checkpoint
+    from video_encoder.pipeline.bitstream_writer import open_stream_for_resume
 
     cfg = EncoderConfig(width=48, height=32, gop_n=2, base_qp=27)
     path = str(tmp_path / "s.tvc")
@@ -307,8 +307,8 @@ def test_ring_pipeline_v4_equals_single(rng):
     ring was v4-safe by construction — it routes through
     encode_frame_traced — but no test pinned it). Byte-equality vs the
     single-device GOP engine, rc=vbv riding the ring state too."""
-    from video_encoder_tpu.parallel.ring import RingEncoder
-    from video_encoder_tpu.pipeline.gop_engine import GopEngine
+    from video_encoder.parallel.ring import RingEncoder
+    from video_encoder.pipeline.gop_engine import GopEngine
 
     d, t, h, w = 2, 3, 32, 48
     cfg = EncoderConfig(width=w, height=h, gop_n=t, base_qp=28, search="full",

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from video_encoder_tpu.codec.bitio import BitReader, BitWriter
+from video_encoder.codec.bitio import BitReader, BitWriter
 
 
 def test_write_read_roundtrip(rng):

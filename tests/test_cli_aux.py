@@ -11,8 +11,8 @@ import os
 import numpy as np
 import pytest
 
-from video_encoder_tpu import cli
-from video_encoder_tpu.codec.config import EncoderConfig
+from video_encoder import cli
+from video_encoder.codec.config import EncoderConfig
 
 
 W, H, N = 96, 64, 5
@@ -45,9 +45,9 @@ def test_checkpoint_resume_byte_identical(clip, tmp_path, capsys):
 
     # interrupt mid-GOP-1 (after GOP 0 flushed) via the library, then let
     # the CLI --checkpoint path resume and finish
-    from video_encoder_tpu.io import yuv
-    from video_encoder_tpu.pipeline.encoder import encode_clip_resumable
-    from video_encoder_tpu.pipeline.gop_engine import GopEngine
+    from video_encoder.io import yuv
+    from video_encoder.pipeline.encoder import encode_clip_resumable
+    from video_encoder.pipeline.gop_engine import GopEngine
 
     cfg = EncoderConfig(width=W, height=H, gop_n=2, base_qp=26, search="full")
     _, _, _, frames = yuv.open_clip(clip, W, H)
@@ -74,7 +74,7 @@ def test_checkpoint_resume_byte_identical(clip, tmp_path, capsys):
 def test_checkpoint_config_mismatch_rejected(clip, tmp_path, capsys):
     ck = str(tmp_path / "ck.json")
     out = str(tmp_path / "o.tvc")
-    from video_encoder_tpu.pipeline import checkpoint as ckpt
+    from video_encoder.pipeline import checkpoint as ckpt
 
     cfg_other = EncoderConfig(width=W, height=H, gop_n=3, base_qp=30)
     ckpt.save(ck, ckpt.EncodeState(cfg_other.config_hash(), 3, 100, 3,
@@ -93,6 +93,23 @@ def test_failover_injected_fault_byte_identical(clip, tmp_path, capsys,
     got = _encode(clip, str(tmp_path / "fo.tvc"), "--failover")
     assert got == ref
     assert '"faults_injected": 1' in capsys.readouterr().err
+
+
+def test_failover_survivor_gops_in_summary(clip, tmp_path, capsys,
+                                           monkeypatch):
+    """A GOP that fails past the primary's retries is encoded by the host
+    survivor; the summary JSON counts it, and the bytes still match."""
+    ref = _encode(clip, str(tmp_path / "ref.tvc"))
+    capsys.readouterr()
+    clean = _encode(clip, str(tmp_path / "clean.tvc"), "--failover")
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])[
+        "survivor_gops"] == 0
+    monkeypatch.setenv("TVC_FAULT_GOPS", "2")
+    monkeypatch.setenv("TVC_FAULT_TIMES", "2")
+    got = _encode(clip, str(tmp_path / "fo.tvc"), "--failover")
+    out = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert got == ref == clean
+    assert out["survivor_gops"] == 1
 
 
 def test_stage_timers_in_summary(clip, tmp_path, capsys):

@@ -27,10 +27,9 @@ def clip(tmp_path, rng):
 
 
 def run_cli(args, timeout=400):
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
-               TVC_PLATFORM="" if os.environ.get("RUN_TPU_TESTS") else "cpu")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     return subprocess.run(
-        [sys.executable, "-m", "video_encoder_tpu.cli"] + [str(a) for a in args],
+        [sys.executable, "-m", "video_encoder.cli"] + [str(a) for a in args],
         capture_output=True, text=True, timeout=timeout, env=env, cwd=REPO,
     )
 
@@ -73,8 +72,8 @@ def test_cli_corrupt_stream(tmp_path, clip):
 
 def test_native_parse_matches_golden(rng):
     """tvc_parse_frame vs the python BitReader on a golden-encoded frame."""
-    from video_encoder_tpu.codec import golden, native
-    from video_encoder_tpu.codec.config import EncoderConfig
+    from video_encoder.codec import golden, native
+    from video_encoder.codec.config import EncoderConfig
 
     if not native.available():
         pytest.skip("native lib unavailable")
@@ -101,9 +100,9 @@ def test_gop_device_decode_bit_exact(rng):
     the golden decoder bit-for-bit across GOP boundaries."""
     import io
 
-    from video_encoder_tpu.codec import native
-    from video_encoder_tpu.codec.config import EncoderConfig
-    from video_encoder_tpu.pipeline import decoder, encoder
+    from video_encoder.codec import native
+    from video_encoder.codec.config import EncoderConfig
+    from video_encoder.pipeline import decoder, encoder
 
     if not native.available():
         pytest.skip("native lib unavailable")

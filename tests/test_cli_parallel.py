@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 
 from tests.conftest import make_clip
-from video_encoder_tpu import cli
+from video_encoder import cli
 
 needs_devices = pytest.mark.skipif(
     len(jax.devices()) < 4, reason="needs >=4 (fake) devices"
@@ -76,6 +76,21 @@ def test_cli_multiprocess_matches_single(clip_file, tmp_path, capsys):
     capsys.readouterr()
     got = _encode(clip_file, tmp_path, "b.tvc", "--multiprocess", "2")
     assert got == ref
+
+
+@needs_devices
+def test_cli_tile_rejects_uneven_mb_rows(tmp_path, rng, capsys):
+    """--tile N needs the MB rows to split into N equal row shards (48 px =
+    3 MB rows cannot split in two): a clear error, not a trace failure."""
+    path = tmp_path / "odd.yuv"
+    with open(path, "wb") as f:
+        for y, cb, cr in make_clip(rng, 64, 48, 2):
+            f.write(y.tobytes() + cb.tobytes() + cr.tobytes())
+    rc = cli.main(["encode", "-i", str(path), "-o", str(tmp_path / "o.tvc"),
+                   "-W", "64", "-H", "48", "--gop", "2", "--devices", "2",
+                   "--tile", "2"])
+    assert rc == 1
+    assert "row shards" in capsys.readouterr().err
 
 
 def test_cli_devices_rejects_twopass(clip_file, tmp_path, capsys):

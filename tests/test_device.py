@@ -2,7 +2,7 @@
 and "Integration" tiers; SPEC.md §11 invariant 2).
 
 The codec is all-integer, so every assertion here is exact equality. The
-same tests re-run on real TPU with RUN_TPU_TESTS=1 (conftest.py).
+same tests run on the card with JAX_PLATFORMS=cuda (conftest.py).
 """
 
 import io
@@ -11,12 +11,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from video_encoder_tpu.codec import golden, spec
-from video_encoder_tpu.codec.config import EncoderConfig
-from video_encoder_tpu.ops import motion, transform as tx
-from video_encoder_tpu.pipeline.device_engine import DeviceEngine
-from video_encoder_tpu.pipeline.encoder import encode_clip, GoldenEngine
-from video_encoder_tpu.pipeline.decoder import decode_clip
+from video_encoder.codec import golden, spec
+from video_encoder.codec.config import EncoderConfig
+from video_encoder.ops import motion, transform as tx
+from video_encoder.pipeline.device_engine import DeviceEngine
+from video_encoder.pipeline.encoder import encode_clip, GoldenEngine
+from video_encoder.pipeline.decoder import decode_clip
 
 
 def test_transform_matches_numpy(rng):

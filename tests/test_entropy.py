@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from video_encoder_tpu.codec import entropy
-from video_encoder_tpu.codec.bitio import BitWriter
+from video_encoder.codec import entropy
+from video_encoder.codec.bitio import BitWriter
 
 
 def _pack_both(lv, qpd, isin, dy, dx, is_p, bw=24):
@@ -96,7 +96,7 @@ def test_pack_frame_planes_matches_blocked(rng):
     import jax
     import jax.numpy as jnp
 
-    from video_encoder_tpu.codec import entropy
+    from video_encoder.codec import entropy
 
     nby, nbx = 6, 10
     lz6 = jnp.asarray(
@@ -131,12 +131,10 @@ def test_pack_frame_planes_matches_blocked(rng):
 
 
 def test_mb_source_chunk_pack_equals_piece_array_path(rng):
-    """pack_frame_chunks(_v2) (r5 MB-source merge + lane-wise header) vs
-    the retained piece-array reference (_frame_pieces + _pieces_to_chunks)
-    — byte equality of span strings, bits, mb_bits, ovf on the jnp path."""
-    import jax
-
-    from video_encoder_tpu.codec import entropy
+    """pack_frame_chunks(_v2): the host bit-concat of the span strings is
+    byte-identical to the device-assembled frame of pack_frame_planes(_v2),
+    with the same mb_bits and ovf."""
+    from video_encoder.parallel.tiles import bit_concat
 
     nby, nbx, bw = 6, 7, 16
     n_mbs = nby * nbx
@@ -151,17 +149,20 @@ def test_mb_source_chunk_pack_equals_piece_array_path(rng):
     isin = jnp.asarray(rng.random((nby, nbx)) < 0.85)
     args = (jnp.asarray(lvl), jnp.asarray(lc), jnp.asarray(lc), qpd, True,
             isin, dy, dxv, bw)
+    cap = entropy.max_words(n_mbs)
 
-    def old_v1(*a):
-        pw, pb, mb, ovf = entropy._frame_pieces(*a)
-        cw, cb, om = entropy._pieces_to_chunks(
-            pw.reshape(n_mbs * 8, bw), pb.reshape(n_mbs * 8), bw)
-        return cw, cb, mb.reshape(nby, nbx), ovf | om
-
-    for new, old in ((entropy.pack_frame_chunks, old_v1),
-                     (entropy.pack_frame_chunks_v2,
-                      entropy._pack_frame_chunks_v2_old)):
-        a = jax.jit(new, static_argnums=8)(*args)
-        b = jax.jit(old, static_argnums=8)(*args)
-        for x, y in zip(a, b):
-            assert np.array_equal(np.asarray(x), np.asarray(y))
+    for chunks, planes in ((entropy.pack_frame_chunks,
+                            entropy.pack_frame_planes),
+                           (entropy.pack_frame_chunks_v2,
+                            entropy.pack_frame_planes_v2)):
+        cw, cb, mb_c, ovf_c = jax.jit(chunks, static_argnums=8)(*args)
+        words, bits, mb_p, ovf_p = jax.jit(
+            planes, static_argnums=(8, 9))(*args, cap)
+        cw, cb = np.asarray(cw), np.asarray(cb)
+        payload, nbits = bit_concat([(cw[i], int(cb[i]))
+                                     for i in range(len(cb))])
+        assert nbits == int(bits)
+        nw = (nbits + 31) // 32
+        assert payload == np.asarray(words)[:nw].astype(">u4").tobytes()
+        assert np.array_equal(np.asarray(mb_c), np.asarray(mb_p))
+        assert bool(ovf_c) == bool(ovf_p)

@@ -3,7 +3,7 @@
 v2 = left-MB motion-vector prediction, per-plane left-block DC DPCM, and the
 chroma QP offset. All predictors are left-only so MB rows stay independent
 (tile-shard safe). Four implementations must agree byte-for-byte: golden
-(numpy), the GOP device engine (jnp/Pallas), the C++ native decoder, and the
+(numpy), the GOP device engine (jnp), the C++ native decoder, and the
 C++ oracle encoder.
 """
 
@@ -15,11 +15,11 @@ import sys
 import numpy as np
 import pytest
 
-from video_encoder_tpu.codec import golden, native
-from video_encoder_tpu.codec.bitstream import OrderedMux
-from video_encoder_tpu.codec.config import EncoderConfig
-from video_encoder_tpu.pipeline import decoder
-from video_encoder_tpu.pipeline.gop_engine import GopEngine
+from video_encoder.codec import golden, native
+from video_encoder.codec.bitstream import OrderedMux
+from video_encoder.codec.config import EncoderConfig
+from video_encoder.pipeline import decoder
+from video_encoder.pipeline.gop_engine import GopEngine
 
 W, H, N = 96, 64, 6
 

@@ -11,17 +11,17 @@ import subprocess
 import numpy as np
 import pytest
 
-from video_encoder_tpu.codec import golden, spec
-from video_encoder_tpu.codec.config import EncoderConfig
-from video_encoder_tpu.pipeline.decoder import (
+from video_encoder.codec import golden, native, spec
+from video_encoder.codec.config import EncoderConfig
+from video_encoder.pipeline.decoder import (
     GoldenDecodeEngine,
     GopDecodeEngine,
     decode_clip,
     decode_clip_gop,
     decode_clip_native,
 )
-from video_encoder_tpu.pipeline.encoder import GoldenEngine, encode_clip
-from video_encoder_tpu.pipeline.gop_engine import GopEngine
+from video_encoder.pipeline.encoder import GoldenEngine, encode_clip
+from video_encoder.pipeline.gop_engine import GopEngine
 
 ORACLE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "oracle", "oracle"
@@ -63,7 +63,7 @@ def test_intra_rows_roundtrip(rng):
 def test_intra_rows_jnp_matches_numpy(rng):
     import jax.numpy as jnp
 
-    from video_encoder_tpu.ops import transform as tx
+    from video_encoder.ops import transform as tx
 
     h, w = 32, 48
     cur = rng.integers(0, 256, (h, w)).astype(np.int32)
@@ -92,7 +92,7 @@ def test_v3_golden_equals_gop_engine(rng, qmat):
                         quant_matrix=qmat)
     g = _encode(cfg, frames, GoldenEngine())
 
-    from video_encoder_tpu.codec.bitstream import OrderedMux
+    from video_encoder.codec.bitstream import OrderedMux
 
     eng = GopEngine(cfg)
     buf = io.BytesIO()
@@ -129,11 +129,7 @@ def test_v3_all_decoders_agree(rng, qmat):
 
 
 def test_v3_oracle_equality(rng, tmp_path):
-    if not os.path.exists(ORACLE):
-        r = subprocess.run(["make", "-C", os.path.dirname(ORACLE)],
-                           capture_output=True)
-        if r.returncode != 0:
-            pytest.skip("oracle build failed")
+    native.build(os.path.dirname(ORACLE), "oracle")
     w, h, n = 96, 64, 4
     frames = _gradient_clip(rng, w, h, n)
     path = tmp_path / "in.yuv"
@@ -207,7 +203,7 @@ def test_intra_slice_reset_changes_prediction(rng):
 def test_intra_slice_jnp_matches_numpy(rng):
     import jax.numpy as jnp
 
-    from video_encoder_tpu.ops import transform as tx
+    from video_encoder.ops import transform as tx
 
     h, w = 64, 48
     cur = rng.integers(0, 256, (h, w)).astype(np.int32)
@@ -234,7 +230,7 @@ def test_v3_islice_golden_equals_gop_engine_and_decodes(rng, islice):
                         intra_slice_mbrows=islice)
     g = _encode(cfg, frames, GoldenEngine())
 
-    from video_encoder_tpu.codec.bitstream import OrderedMux
+    from video_encoder.codec.bitstream import OrderedMux
 
     eng = GopEngine(cfg)
     buf = io.BytesIO()
@@ -257,16 +253,12 @@ def test_v3_islice_golden_equals_gop_engine_and_decodes(rng, islice):
         for pa, pb in zip(a, b):
             assert np.array_equal(np.asarray(pa, np.uint8), pb)
     # recon == source-side recon: decode must equal the encoder's recon
-    from video_encoder_tpu.utils.metrics import psnr
+    from video_encoder.utils.metrics import psnr
     assert psnr(want[0][0], frames[0][0]) > 25
 
 
 def test_v3_islice_oracle_equality(rng, tmp_path):
-    if not os.path.exists(ORACLE):
-        r = subprocess.run(["make", "-C", os.path.dirname(ORACLE)],
-                           capture_output=True)
-        if r.returncode != 0:
-            pytest.skip("oracle build failed")
+    native.build(os.path.dirname(ORACLE), "oracle")
     w, h, n = 96, 64, 4
     frames = _gradient_clip(rng, w, h, n)
     path = tmp_path / "in.yuv"

@@ -10,12 +10,12 @@ import tempfile
 import numpy as np
 import pytest
 
-from video_encoder_tpu.codec import golden, native, spec
-from video_encoder_tpu.codec.bitstream import OrderedMux
-from video_encoder_tpu.codec.config import EncoderConfig
-from video_encoder_tpu.pipeline import decoder
-from video_encoder_tpu.pipeline.encoder import GoldenEngine, encode_clip
-from video_encoder_tpu.pipeline.gop_engine import GopEngine
+from video_encoder.codec import golden, native, spec
+from video_encoder.codec.bitstream import OrderedMux
+from video_encoder.codec.config import EncoderConfig
+from video_encoder.pipeline import decoder
+from video_encoder.pipeline.encoder import GoldenEngine, encode_clip
+from video_encoder.pipeline.gop_engine import GopEngine
 
 W, H, N = 96, 64, 6
 
@@ -72,7 +72,7 @@ def _encode_gop_engine(cfg, planes):
 def test_hpel_planes_jnp_matches_golden(rng):
     import jax.numpy as jnp
 
-    from video_encoder_tpu.ops import motion
+    from video_encoder.ops import motion
 
     p = rng.integers(0, 256, (24, 40)).astype(np.int32)
     g = golden.hpel_planes(p)
@@ -84,7 +84,7 @@ def test_hpel_planes_jnp_matches_golden(rng):
 def test_hpel_refine_jnp_matches_golden(rng):
     import jax.numpy as jnp
 
-    from video_encoder_tpu.ops import dispatch
+    from video_encoder.ops import dispatch
 
     h, w = 64, 96
     cur = rng.integers(0, 256, (h, w)).astype(np.int32)
@@ -162,7 +162,7 @@ def test_v4_gains_on_subpel_motion(rng):
     same quantizer hence ~equal PSNR — the gain shows as smaller residuals
     = fewer bits. Require >= 7% bitrate saving at no quality loss
     (measured ~12% on this content, both engines)."""
-    from video_encoder_tpu.utils.metrics import psnr
+    from video_encoder.utils.metrics import psnr
 
     planes, _ = _subpel_clip(rng)
 
@@ -190,7 +190,7 @@ def test_v4_mv_range_rejected(rng):
     data = bytearray(_encode_gop_engine(cfg, planes))
     # forge: flip payload bits of a P frame until the parse dies or parses;
     # the targeted guarantee is that decode NEVER yields an out-of-range mv
-    from video_encoder_tpu.codec import bitstream
+    from video_encoder.codec import bitstream
 
     info, packets = bitstream.demux(io.BytesIO(bytes(data)))
     bad = 0

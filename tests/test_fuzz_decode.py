@@ -9,9 +9,9 @@ import io
 import numpy as np
 import pytest
 
-from video_encoder_tpu.codec import native
-from video_encoder_tpu.codec.config import EncoderConfig
-from video_encoder_tpu.pipeline import decoder, encoder
+from video_encoder.codec import native
+from video_encoder.codec.config import EncoderConfig
+from video_encoder.pipeline import decoder, encoder
 
 
 def _make_stream(rng, w=64, h=48, n=4):

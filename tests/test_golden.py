@@ -5,8 +5,8 @@ mode decisions, rate-control variants."""
 import numpy as np
 import pytest
 
-from video_encoder_tpu.codec import golden, spec
-from video_encoder_tpu.codec.config import EncoderConfig
+from video_encoder.codec import golden, spec
+from video_encoder.codec.config import EncoderConfig
 
 
 def assert_frames_equal(a: golden.Frame, b: golden.Frame):
@@ -33,7 +33,7 @@ def test_intra_roundtrip(small_clip, qp):
 
 
 def test_intra_high_quality_psnr(small_clip):
-    from video_encoder_tpu.utils.metrics import psnr
+    from video_encoder.utils.metrics import psnr
 
     y, cb, cr = small_clip[0]
     cfg = EncoderConfig(width=64, height=48, gop_n=1, base_qp=1)

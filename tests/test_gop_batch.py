@@ -8,9 +8,9 @@ import numpy as np
 import pytest
 
 from tests.conftest import make_clip
-from video_encoder_tpu.codec.config import EncoderConfig
-from video_encoder_tpu.codec.golden import Frame
-from video_encoder_tpu.pipeline.gop_engine import GopEngine
+from video_encoder.codec.config import EncoderConfig
+from video_encoder.codec.golden import Frame
+from video_encoder.pipeline.gop_engine import GopEngine
 
 W, H, T, G = 48, 32, 3, 3
 
@@ -80,8 +80,8 @@ def test_batch_overflow_fallback(rng):
 def test_unroll_is_bit_identical(rng):
     import jax.numpy as jnp
 
-    from video_encoder_tpu.codec import entropy
-    from video_encoder_tpu.pipeline import gop_engine
+    from video_encoder.codec import entropy
+    from video_encoder.pipeline import gop_engine
 
     frames = [Frame.from_planes(*p) for p in make_clip(rng, W, H, 4)]
     y = jnp.asarray(np.stack([f.y for f in frames]))

@@ -4,10 +4,10 @@ invariant 2). One config only — XLA CPU compile of the full GOP program is
 
 import numpy as np
 
-from video_encoder_tpu.codec import golden
-from video_encoder_tpu.codec.config import EncoderConfig
-from video_encoder_tpu.pipeline.encoder import encode_gop, GoldenEngine
-from video_encoder_tpu.pipeline.gop_engine import GopEngine
+from video_encoder.codec import golden
+from video_encoder.codec.config import EncoderConfig
+from video_encoder.pipeline.encoder import encode_gop, GoldenEngine
+from video_encoder.pipeline.gop_engine import GopEngine
 
 
 def test_gop_engine_matches_golden(rng):

@@ -10,11 +10,11 @@ import subprocess
 import numpy as np
 import pytest
 
-from video_encoder_tpu.codec import golden, spec
-from video_encoder_tpu.codec.config import EncoderConfig
-from video_encoder_tpu.ops import motion
-from video_encoder_tpu.pipeline.decoder import decode_clip
-from video_encoder_tpu.pipeline.encoder import GoldenEngine, encode_clip
+from video_encoder.codec import golden, native, spec
+from video_encoder.codec.config import EncoderConfig
+from video_encoder.ops import motion
+from video_encoder.pipeline.decoder import decode_clip
+from video_encoder.pipeline.encoder import GoldenEngine, encode_clip
 
 ORACLE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "oracle", "oracle"
@@ -83,13 +83,13 @@ def _clip(rng, w, h, n):
 
 
 def test_hier_golden_roundtrip_and_device_rejection(rng):
-    """hier is golden/oracle-only since r4 (measured dominated on TPU —
-    BASELINE.md): golden streams still encode+decode; the device engines
+    """hier is golden/oracle-only: golden streams still encode+decode; the
+    device engines
     must reject the mode with a clear ValueError, and the CLI must reject
     it at argument validation (not at trace time)."""
-    from video_encoder_tpu import cli
-    from video_encoder_tpu.codec.golden import Frame
-    from video_encoder_tpu.pipeline.gop_engine import GopEngine
+    from video_encoder import cli
+    from video_encoder.codec.golden import Frame
+    from video_encoder.pipeline.gop_engine import GopEngine
 
     w, h, n = 64, 48, 5
     frames = _clip(rng, w, h, n)
@@ -110,11 +110,7 @@ def test_hier_golden_roundtrip_and_device_rejection(rng):
 
 
 def test_hier_oracle_equality(rng, tmp_path):
-    if not os.path.exists(ORACLE):
-        r = subprocess.run(["make", "-C", os.path.dirname(ORACLE)],
-                           capture_output=True)
-        if r.returncode != 0:
-            pytest.skip("oracle build failed")
+    native.build(os.path.dirname(ORACLE), "oracle")
     w, h, n = 64, 48, 5
     frames = _clip(rng, w, h, n)
     path = tmp_path / "in.yuv"
@@ -135,7 +131,7 @@ def test_hier_oracle_equality(rng, tmp_path):
 def test_hier_quality_near_full(rng):
     """On panning content, hier PSNR must be within 0.5 dB of full search
     at equal qp (it evaluates ~10x fewer candidates)."""
-    from video_encoder_tpu.utils.metrics import psnr
+    from video_encoder.utils.metrics import psnr
 
     w, h, n = 128, 96, 6
     base = rng.integers(0, 256, (h + 64, w + 64)).astype(np.float64)

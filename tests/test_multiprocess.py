@@ -14,7 +14,7 @@ import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from video_encoder_tpu.parallel import multiprocess as mp
+from video_encoder.parallel import multiprocess as mp
 
 
 @pytest.mark.parametrize("n,rc", [(2, "none"), (2, "bitrate")])

@@ -8,20 +8,18 @@ import subprocess
 import numpy as np
 import pytest
 
-from video_encoder_tpu.codec.config import EncoderConfig
-from video_encoder_tpu.io import yuv
-from video_encoder_tpu.pipeline.decoder import decode_clip
-from video_encoder_tpu.pipeline.encoder import encode_clip
+from video_encoder.codec import native
+from video_encoder.codec.config import EncoderConfig
+from video_encoder.io import yuv
+from video_encoder.pipeline.decoder import decode_clip
+from video_encoder.pipeline.encoder import encode_clip
 
 ORACLE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "oracle", "oracle")
 
 
 @pytest.fixture(scope="module")
 def oracle_bin():
-    if not os.path.exists(ORACLE):
-        r = subprocess.run(["make", "-C", os.path.dirname(ORACLE)], capture_output=True)
-        if r.returncode != 0:
-            pytest.skip(f"oracle build failed: {r.stderr.decode()[:200]}")
+    native.build(os.path.dirname(ORACLE), "oracle")
     return ORACLE
 
 

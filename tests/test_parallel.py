@@ -8,11 +8,11 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from video_encoder_tpu.codec import entropy, golden, spec
-from video_encoder_tpu.codec.config import EncoderConfig
-from video_encoder_tpu.parallel import tiles
-from video_encoder_tpu.parallel.gop_parallel import ShardedGopEncoder
-from video_encoder_tpu.pipeline.gop_engine import GopEngine
+from video_encoder.codec import entropy, golden, spec
+from video_encoder.codec.config import EncoderConfig
+from video_encoder.parallel import tiles
+from video_encoder.parallel.gop_parallel import ShardedGopEncoder
+from video_encoder.pipeline.gop_engine import GopEngine
 
 needs_devices = pytest.mark.skipif(
     len(jax.devices()) < 4, reason="needs >=4 (fake) devices"
@@ -86,7 +86,7 @@ def test_tile_sharded_equals_single(rng, ref_mode):
 
 
 def test_bit_concat_matches_bitwriter(rng):
-    from video_encoder_tpu.codec.bitio import BitWriter
+    from video_encoder.codec.bitio import BitWriter
 
     chunks = []
     full = BitWriter()
@@ -220,7 +220,7 @@ def test_2d_mesh_vbv_equals_single(rng):
 
 def test_pack_frame_rows_concat_equals_frame(rng):
     """Per-MB-row pack strings concatenate to exactly the frame pack."""
-    from video_encoder_tpu.codec import entropy
+    from video_encoder.codec import entropy
 
     nby, nbx = 4, 6
     lz_y = jnp.asarray(
@@ -257,7 +257,7 @@ def test_tile2d_sharded_equals_single(rng, sr, sc, rc):
     """2-D (rows x cols) tile sharding with corner-correct halo is
     byte-identical to single-device (VERDICT r1 next-step #6); rc=mb's
     row-spanning pace rides 'tc' collectives (r2 verdict item 4)."""
-    from video_encoder_tpu.codec import entropy
+    from video_encoder.codec import entropy
 
     h, w, t = 64, 128, 3
     frames = _smooth_frames(rng, h, w, t, slide=5)
@@ -297,8 +297,8 @@ def test_tile2d_sharded_equals_single(rng, sr, sc, rc):
 def test_tile_sharded_v3_islice_equals_single(rng, qmat, rc):
     """v3 with §13.3 intra slices (islice = per-shard MB rows) tile-shards
     byte-identically to the unsharded encode — the r2 verdict's
-    sharding x format matrix hole, closed the TPU-first way (independent
-    slices instead of an inter-shard sequential pipeline)."""
+    sharding x format matrix hole, closed with independent slices instead
+    of an inter-shard sequential pipeline."""
     h, w, t, ntile = 64, 32, 2, 4
     islice = h // 16 // ntile  # 1 MB row per shard
     frames = _smooth_frames(rng, h, w, t)

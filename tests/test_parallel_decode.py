@@ -8,18 +8,18 @@ import io
 import numpy as np
 import pytest
 
-from video_encoder_tpu.codec import native
-from video_encoder_tpu.codec.config import EncoderConfig
-from video_encoder_tpu.codec.golden import Frame
-from video_encoder_tpu.pipeline import decoder
-from video_encoder_tpu.pipeline.encoder import GoldenGopAdapter
+from video_encoder.codec import native
+from video_encoder.codec.config import EncoderConfig
+from video_encoder.codec.golden import Frame
+from video_encoder.pipeline import decoder
+from video_encoder.pipeline.encoder import GoldenGopAdapter
 
 if not native.available():
     pytest.skip("native lib unavailable", allow_module_level=True)
 
 
 def _encode(rng, w, h, n, gop_n, fmt=1):
-    from video_encoder_tpu.codec.bitstream import OrderedMux
+    from video_encoder.codec.bitstream import OrderedMux
 
     cfg = EncoderConfig(width=w, height=h, gop_n=gop_n, base_qp=26,
                         search="full", format_version=fmt,
@@ -64,7 +64,7 @@ def test_parallel_decode_single_gop_and_one_worker(rng):
 
 
 def test_parallel_decode_cli(rng, tmp_path):
-    from video_encoder_tpu import cli
+    from video_encoder import cli
 
     data = _encode(rng, 96, 64, 6, 2)
     tvc = tmp_path / "c.tvc"

@@ -6,10 +6,10 @@ import io
 import numpy as np
 import pytest
 
-from video_encoder_tpu.codec import bitstream, golden
-from video_encoder_tpu.codec.config import EncoderConfig
-from video_encoder_tpu.pipeline.decoder import decode_clip
-from video_encoder_tpu.pipeline.encoder import encode_clip, encode_gop, gop_schedule, GoldenEngine
+from video_encoder.codec import bitstream, golden
+from video_encoder.codec.config import EncoderConfig
+from video_encoder.pipeline.decoder import decode_clip
+from video_encoder.pipeline.encoder import encode_clip, encode_gop, gop_schedule, GoldenEngine
 
 from conftest import make_clip
 

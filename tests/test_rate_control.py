@@ -11,16 +11,16 @@ import subprocess
 import numpy as np
 import pytest
 
-from video_encoder_tpu.codec import spec
-from video_encoder_tpu.codec.config import EncoderConfig
-from video_encoder_tpu.pipeline.decoder import decode_clip
-from video_encoder_tpu.pipeline.encoder import (
+from video_encoder.codec import native, spec
+from video_encoder.codec.config import EncoderConfig
+from video_encoder.pipeline.decoder import decode_clip
+from video_encoder.pipeline.encoder import (
     GoldenEngine,
     allocate_gop_qps,
     encode_clip,
     encode_clip_twopass,
 )
-from video_encoder_tpu.pipeline.gop_engine import GopEngine
+from video_encoder.pipeline.gop_engine import GopEngine
 
 ORACLE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "oracle", "oracle"
@@ -43,8 +43,8 @@ def _encode(cfg, frames, engine=None):
 
 
 def _encode_gop_resident(cfg, frames):
-    from video_encoder_tpu.codec.bitstream import OrderedMux
-    from video_encoder_tpu.codec.golden import Frame
+    from video_encoder.codec.bitstream import OrderedMux
+    from video_encoder.codec.golden import Frame
 
     eng = GopEngine(cfg)
     buf = io.BytesIO()
@@ -91,11 +91,7 @@ def test_vbv_golden_equals_gop_engine(rng):
 
 
 def test_vbv_oracle_equality(rng, tmp_path):
-    if not os.path.exists(ORACLE):
-        r = subprocess.run(["make", "-C", os.path.dirname(ORACLE)],
-                           capture_output=True)
-        if r.returncode != 0:
-            pytest.skip("oracle build failed")
+    native.build(os.path.dirname(ORACLE), "oracle")
     w, h, n = 64, 48, 6
     frames = _busy_clip(rng, w, h, n)
     path = tmp_path / "in.yuv"

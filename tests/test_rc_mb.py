@@ -12,11 +12,11 @@ import jax
 import numpy as np
 import pytest
 
-from video_encoder_tpu.codec import golden, spec
-from video_encoder_tpu.codec.config import EncoderConfig
-from video_encoder_tpu.pipeline.decoder import decode_clip
-from video_encoder_tpu.pipeline.encoder import GoldenEngine, encode_clip
-from video_encoder_tpu.pipeline.gop_engine import GopEngine, mb_rc_offsets_jnp
+from video_encoder.codec import golden, native, spec
+from video_encoder.codec.config import EncoderConfig
+from video_encoder.pipeline.decoder import decode_clip
+from video_encoder.pipeline.encoder import GoldenEngine, encode_clip
+from video_encoder.pipeline.gop_engine import GopEngine, mb_rc_offsets_jnp
 
 ORACLE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "oracle", "oracle"
@@ -70,7 +70,7 @@ def test_mb_golden_equals_gop_engine(rng, fmt):
                         chroma_qp_offset=2 if fmt == 2 else 0)
     g = _encode(cfg, frames, GoldenEngine())
 
-    from video_encoder_tpu.codec.bitstream import OrderedMux
+    from video_encoder.codec.bitstream import OrderedMux
 
     eng = GopEngine(cfg)
     buf = io.BytesIO()
@@ -86,11 +86,7 @@ def test_mb_golden_equals_gop_engine(rng, fmt):
 
 
 def test_mb_oracle_equality(rng, tmp_path):
-    if not os.path.exists(ORACLE):
-        r = subprocess.run(["make", "-C", os.path.dirname(ORACLE)],
-                           capture_output=True)
-        if r.returncode != 0:
-            pytest.skip("oracle build failed")
+    native.build(os.path.dirname(ORACLE), "oracle")
     w, h, n = 96, 48, 5
     frames = _skewed_clip(rng, w, h, n)
     path = tmp_path / "in.yuv"
@@ -139,8 +135,8 @@ def test_mb_tile_sharded_equals_single(rng):
     import jax.numpy as jnp
     from jax.sharding import Mesh
 
-    from video_encoder_tpu.codec import entropy
-    from video_encoder_tpu.parallel import tiles
+    from video_encoder.codec import entropy
+    from video_encoder.parallel import tiles
 
     h, w, t, ntile = 64, 32, 3, 4
     base = rng.integers(0, 256, (h + 16, w + 16)).astype(np.int32)

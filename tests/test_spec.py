@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from video_encoder_tpu.codec import spec
+from video_encoder.codec import spec
 
 
 def test_zigzag_is_permutation():
