@@ -3,7 +3,6 @@
 
     python3 chip_smoke.py                  # one card: every phase below
     python3 chip_smoke.py --cards 4        # four cards: the sharded path only
-    python3 chip_smoke.py --phases enc1080,modes
 
 Content is a seeded synthetic clip (bench.synth_clip) written to disk as raw
 I420 and run through the CLI entry point (video_encoder.cli.main) in this
@@ -22,9 +21,10 @@ result line):
            v3 + quant matrix + intra slices of 17 MB rows
   lowqp    3840x2160, 8 frames, --gop 8 --qp 4 (worst-case block budget,
            largest transform coefficients)
-  multi    (--cards 4 only) 4K 32 frames GOP 8 with --devices 4, and 1080p
-           32 frames with --devices 4 --tile 2 (4K's 135 MB rows do not
-           split in two), each against the one-card stream and the oracle
+  multi    (--cards 4 only) 4K 32 frames GOP 8 on one card (against the
+           oracle), then with --devices 4 and with --devices 4 --tile 2
+           (135 MB rows in shards of 68, the last padded), each against the
+           one-card stream
 
 first_gop_s is the wall time of the first GOP, which includes compiling the
 GOP program; steady_fps is the rate over the remaining GOPs; peak_bytes is
@@ -52,7 +52,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, ".smoke_work")
 ORACLE_DIR = os.path.join(ROOT, "oracle")
 ORACLE = os.path.join(ORACLE_DIR, "oracle")
-PHASES = ("enc1080", "enc4k", "modes", "lowqp")
 PSNR_TOL_DB = 0.01
 
 
@@ -186,19 +185,13 @@ def encode_phase(name, clip, w, h, n, gop, cli_args, oracle, src_y=None):
         check(rec.get(k, True), f"{name}: {k} is false")
 
 
-def one_card(phases, pool):
+def one_card(pool):
     w1, h1, w4, h4 = 1920, 1080, 3840, 2160
     c1080 = os.path.join(WORK, "c1080.yuv")
     c4k = os.path.join(WORK, "c4k.yuv")
-    y1080 = write_clip(c1080, 60, h1, w1, seed=1)
+    write_clip(c1080, 60, h1, w1, seed=1)
     y4k = write_clip(c4k, 16, h4, w4, seed=2)
-    del y1080
 
-    jobs = {}
-    if "enc1080" in phases:
-        jobs["enc1080"] = pool.submit(oracle_job, c1080, w1, h1, 30, 30)
-    if "enc4k" in phases:
-        jobs["enc4k"] = pool.submit(oracle_job, c4k, w4, h4, 8, 30)
     modes = [
         (["--search", "diamond", "--rc", "adaptive"],
          dict(search="diamond", rc="adaptive")),
@@ -207,36 +200,30 @@ def one_card(phases, pool):
         (["--format", "3", "--quant-matrix", "--intra-slice", "17"],
          dict(fmt=3, qmat=1, islice=17)),
     ]
-    if "modes" in phases:
-        for i, (_, okw) in enumerate(modes):
-            jobs[f"modes{i}"] = pool.submit(oracle_job, c1080, w1, h1, 30, 30,
-                                            frames=16, **okw)
-    if "lowqp" in phases:
-        jobs["lowqp"] = pool.submit(oracle_job, c4k, w4, h4, 8, 4, frames=8)
+    jobs = {
+        "enc1080": pool.submit(oracle_job, c1080, w1, h1, 30, 30),
+        "enc4k": pool.submit(oracle_job, c4k, w4, h4, 8, 30),
+        "lowqp": pool.submit(oracle_job, c4k, w4, h4, 8, 4, frames=8),
+    }
+    for i, (_, okw) in enumerate(modes):
+        jobs[f"modes{i}"] = pool.submit(oracle_job, c1080, w1, h1, 30, 30,
+                                        frames=16, **okw)
 
     failed = []
 
-    def guarded(name, fn, *a, **kw):
+    def guarded(name, *a, **kw):
         try:
-            fn(*a, **kw)
+            encode_phase(name, *a, jobs[name], **kw)
         except Exception as e:  # report every phase, fail at the end
             traceback.print_exc()
             emit(dict(phase=name, error=f"{type(e).__name__}: {e}"))
             failed.append(name)
 
-    if "enc1080" in phases:
-        guarded("enc1080", encode_phase, "enc1080", c1080, w1, h1, 60, 30,
-                ["--qp", 30], jobs["enc1080"])
-    if "enc4k" in phases:
-        guarded("enc4k", encode_phase, "enc4k", c4k, w4, h4, 16, 8,
-                ["--qp", 30], jobs["enc4k"], src_y=y4k)
-    if "modes" in phases:
-        for i, (args, _) in enumerate(modes):
-            guarded(f"modes{i}", encode_phase, f"modes{i}", c1080, w1, h1,
-                    16, 30, ["--qp", 30, *args], jobs[f"modes{i}"])
-    if "lowqp" in phases:
-        guarded("lowqp", encode_phase, "lowqp", c4k, w4, h4, 8, 8,
-                ["--qp", 4], jobs["lowqp"], src_y=y4k[:8])
+    guarded("enc1080", c1080, w1, h1, 60, 30, ["--qp", 30])
+    guarded("enc4k", c4k, w4, h4, 16, 8, ["--qp", 30], src_y=y4k)
+    for i, (args, _) in enumerate(modes):
+        guarded(f"modes{i}", c1080, w1, h1, 16, 30, ["--qp", 30, *args])
+    guarded("lowqp", c4k, w4, h4, 8, 8, ["--qp", 4], src_y=y4k[:8])
     return failed
 
 
@@ -264,43 +251,50 @@ def four_cards(pool):
         gop_parallel.encode_gop_batch_sharded)
     tiles.encode_gop_batch_2d = recording(tiles.encode_gop_batch_2d)
 
+    w, h, n = 3840, 2160, 32
+    clip = os.path.join(WORK, "multi4k.yuv")
+    write_clip(clip, n, h, w, seed=3)
+    oracle = pool.submit(oracle_job, clip, w, h, 8, 30)
+
+    def encode(label, extra):
+        tvc = os.path.join(WORK, f"multi.{label}.tvc")
+        device_sets.clear()
+        t0 = time.perf_counter()
+        summary, _ = run_cli(["encode", "-i", clip, "-W", w, "-H", h, "-o", tvc,
+                              "--gop", 8, "--qp", 30, *extra])
+        wall = round(time.perf_counter() - t0, 3)
+        check(summary["frames"] == n, f"{label}: {summary}")
+        with open(tvc, "rb") as f:
+            stream = f.read()
+        os.remove(tvc)
+        return stream, wall, device_sets[:]
+
+    try:
+        one, one_wall, _ = encode("one", [])
+        o_stream, _ = oracle.result()
+        emit(dict(phase="multi_one_card", wall_s=one_wall,
+                  matches_oracle=one == o_stream))
+        check(one == o_stream, "one-card stream differs from the oracle's")
+    except Exception as e:
+        traceback.print_exc()
+        emit(dict(phase="multi_one_card", error=f"{type(e).__name__}: {e}"))
+        return ["multi_one_card"]
+
+    cards = [d.id for d in jax.devices()[:4]]
     failed = []
-    cases = [("dp4k", 3840, 2160, ["--devices", 4]),
-             ("tile1080", 1920, 1080, ["--devices", 4, "--tile", 2])]
-    clips = {}
-    jobs = {}
-    for name, w, h, _ in cases:
-        clips[name] = os.path.join(WORK, f"{name}.yuv")
-        write_clip(clips[name], 32, h, w, seed=3)
-        jobs[name] = pool.submit(oracle_job, clips[name], w, h, 8, 30)
-    for name, w, h, shard_args in cases:
+    for name, extra in (("dp", ["--devices", 4]),
+                        ("tile", ["--devices", 4, "--tile", 2])):
         try:
-            streams = {}
-            rec = dict(phase=f"multi_{name}", args=" ".join(map(str, shard_args)))
-            for label, extra in (("one", []), ("sharded", shard_args)):
-                tvc = os.path.join(WORK, f"{name}.{label}.tvc")
-                device_sets.clear()
-                t0 = time.perf_counter()
-                summary, _ = run_cli(["encode", "-i", clips[name], "-W", w,
-                                      "-H", h, "-o", tvc, "--gop", 8,
-                                      "--qp", 30, *extra])
-                rec[f"{label}_wall_s"] = round(time.perf_counter() - t0, 3)
-                check(summary["frames"] == 32, f"{name}: {summary}")
-                with open(tvc, "rb") as f:
-                    streams[label] = f.read()
-                os.remove(tvc)
-                if label == "sharded":
-                    rec["output_device_sets"] = device_sets[:]
-            rec["peak_bytes_per_device"] = [peak_bytes(d) for d in jax.devices()[:4]]
-            o_stream, _ = jobs[name].result()
-            rec["sharded_matches_one_card"] = streams["sharded"] == streams["one"]
-            rec["one_card_matches_oracle"] = streams["one"] == o_stream
-            rec["all_cards_hold_shards"] = bool(rec["output_device_sets"]) and all(
-                s == [d.id for d in jax.devices()[:4]]
-                for s in rec["output_device_sets"])
+            stream, wall, sets = encode(name, extra)
+            rec = dict(phase=f"multi_{name}", args=" ".join(map(str, extra)),
+                       wall_s=wall, output_device_sets=sets,
+                       peak_bytes_per_device=[peak_bytes(d)
+                                              for d in jax.devices()[:4]],
+                       sharded_matches_one_card=stream == one,
+                       all_cards_hold_shards=bool(sets) and all(
+                           s == cards for s in sets))
             emit(rec)
-            for k in ("sharded_matches_one_card", "one_card_matches_oracle",
-                      "all_cards_hold_shards"):
+            for k in ("sharded_matches_one_card", "all_cards_hold_shards"):
                 check(rec[k], f"{name}: {k} is false")
         except Exception as e:
             traceback.print_exc()
@@ -312,13 +306,7 @@ def four_cards(pool):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cards", type=int, choices=[1, 4], default=1)
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help="one-card phases to run (comma-separated)")
     a = ap.parse_args()
-    phases = [p for p in a.phases.split(",") if p]
-    unknown = set(phases) - set(PHASES)
-    if unknown:
-        ap.error(f"unknown phases {sorted(unknown)}")
 
     import jax
 
@@ -348,8 +336,7 @@ def main() -> int:
         native.build(ORACLE_DIR, "oracle")
         native.build(ORACLE_DIR, "liboracle.so")
         with concurrent.futures.ThreadPoolExecutor(8) as pool:
-            failed = (four_cards(pool) if a.cards == 4
-                      else one_card(phases, pool))
+            failed = four_cards(pool) if a.cards == 4 else one_card(pool)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

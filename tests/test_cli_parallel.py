@@ -78,19 +78,44 @@ def test_cli_multiprocess_matches_single(clip_file, tmp_path, capsys):
     assert got == ref
 
 
-@needs_devices
-def test_cli_tile_rejects_uneven_mb_rows(tmp_path, rng, capsys):
-    """--tile N needs the MB rows to split into N equal row shards (48 px =
-    3 MB rows cannot split in two): a clear error, not a trace failure."""
+def _odd_clip(tmp_path, rng):
+    """48 px = 3 MB rows, which do not split evenly in two or four."""
     path = tmp_path / "odd.yuv"
     with open(path, "wb") as f:
-        for y, cb, cr in make_clip(rng, 64, 48, 2):
+        for y, cb, cr in make_clip(rng, 64, 48, 6):
             f.write(y.tobytes() + cb.tobytes() + cr.tobytes())
-    rc = cli.main(["encode", "-i", str(path), "-o", str(tmp_path / "o.tvc"),
-                   "-W", "64", "-H", "48", "--gop", "2", "--devices", "2",
-                   "--tile", "2"])
+    return str(path)
+
+
+def _encode_odd(path, tmp_path, name, *extra):
+    out = str(tmp_path / name)
+    rc = cli.main(["encode", "-i", path, "-o", out, "-W", "64", "-H", "48",
+                   "--gop", "3", "--search", "full", *extra])
+    return rc, out
+
+
+@needs_devices
+def test_cli_tile_rejects_uneven_mb_rows(tmp_path, rng, capsys):
+    """Uneven MB rows are padded to equal row shards, but only while every
+    shard holds a frame row: 3 MB rows over --tile 4 is a clear error, not
+    a trace failure."""
+    path = _odd_clip(tmp_path, rng)
+    rc, _ = _encode_odd(path, tmp_path, "o.tvc", "--devices", "4", "--tile", "4")
     assert rc == 1
     assert "row shards" in capsys.readouterr().err
+
+
+@needs_devices
+def test_cli_tile_uneven_mb_rows_matches_single(tmp_path, rng, capsys):
+    """3 MB rows over --tile 2 (shards of 2, the last padded) give the
+    single-device stream."""
+    path = _odd_clip(tmp_path, rng)
+    rc, ref = _encode_odd(path, tmp_path, "a.tvc")
+    assert rc == 0
+    rc, got = _encode_odd(path, tmp_path, "b.tvc", "--devices", "4", "--tile", "2")
+    assert rc == 0
+    with open(ref, "rb") as a, open(got, "rb") as b:
+        assert a.read() == b.read()
 
 
 def test_cli_devices_rejects_twopass(clip_file, tmp_path, capsys):

@@ -28,6 +28,24 @@ def test_transform_matches_numpy(rng):
                           spec.inverse_transform(c))
 
 
+@pytest.mark.parametrize("lim", [255, 65520])
+def test_transform_exact_at_extremes(rng, lim):
+    """The int32 dot of the 8x8 transform stays exact at the largest inputs
+    the codec gives it: +-255 residuals, +-65520 dequantized coefficients;
+    blocks of random signs at the extreme, all +lim, all -lim, and random
+    values in range."""
+    x = np.concatenate([
+        rng.choice(np.array([-lim, lim], np.int32), size=(64, 8, 8)),
+        np.full((1, 8, 8), lim, np.int32),
+        np.full((1, 8, 8), -lim, np.int32),
+        rng.integers(-lim, lim + 1, size=(64, 8, 8)).astype(np.int32),
+    ])
+    assert np.array_equal(np.asarray(tx.forward_transform(jnp.asarray(x))),
+                          spec.forward_transform(x))
+    assert np.array_equal(np.asarray(tx.inverse_transform(jnp.asarray(x))),
+                          spec.inverse_transform(x))
+
+
 def test_quant_matches_numpy(rng):
     c = rng.integers(-4095, 4096, size=(500,)).astype(np.int32)
     for qp in (1, 28, 63):

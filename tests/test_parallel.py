@@ -437,3 +437,83 @@ def test_tile_chunks_emit_equals_frame(rng):
                     [(wc[s, ti, c], int(bc[s, ti, c]))
                      for c in range(bc.shape[2]) if bc[s, ti, c]])
                 assert nf == nc and pf == pc, (fmt, s, ti)
+
+
+@pytest.mark.parametrize("mb_rows,ntile,per", [
+    (135, 2, 68), (135, 4, 34), (68, 4, 17), (5, 2, 3), (7, 4, 2), (5, 4, None),
+])
+def test_shard_mb_rows(mb_rows, ntile, per):
+    """Rows split into equal shards, the last one padded; a split that would
+    leave a shard without a frame row is refused."""
+    if per is None:
+        with pytest.raises(ValueError, match="row shards"):
+            tiles.shard_mb_rows(mb_rows, ntile)
+    else:
+        assert tiles.shard_mb_rows(mb_rows, ntile) == per
+
+
+@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 (fake) devices")
+@pytest.mark.parametrize("h,ntile,kw", [
+    (80, 2, {}),
+    (112, 4, {}),
+    (80, 2, dict(rc="adaptive")),
+    (80, 2, dict(rc="mb", target_kbps=300)),
+    (80, 2, dict(rc="vbv", target_kbps=50, vbv_kbits=10)),
+    (80, 2, dict(format_version=2, chroma_qp_offset=2)),
+    (80, 2, dict(format_version=3, quant_matrix=True, intra_slice_mbrows=3)),
+    (80, 2, dict(format_version=4, intra_slice_mbrows=3)),
+], ids=["v1-5rows-2", "v1-7rows-4", "adaptive", "rc-mb", "vbv", "v2", "v3",
+        "v4"])
+def test_uneven_tile_rows_equal_single(rng, h, ntile, kw):
+    """MB rows that do not split evenly over 'tile' (4K: 135) are edge-
+    padded to equal shards; the padding rows add no bits and reconstruct
+    as the frame's edge, so the fused 2-D stream equals the one-device
+    stream."""
+    w, t = 32, 3
+    frames = _smooth_frames(rng, h, w, 2 * t)
+    gops = [frames[:t], frames[t:]]
+    cfg = EncoderConfig(width=w, height=h, gop_n=t, base_qp=26, search="full",
+                        **kw)
+    eng = GopEngine(cfg)
+    ref = [p for g, gop in enumerate(gops) for p in eng.encode_gop(gop, g * t)[0]]
+
+    mesh = Mesh(np.array(jax.devices()[: 2 * ntile]).reshape(2, ntile),
+                ("gop", "tile"))
+    pk = ShardedGopEncoder(cfg, mesh=mesh).encode_gop_batch(gops, [0, t])
+    ref.sort(key=lambda p: p.index)
+    pk.sort(key=lambda p: p.index)
+    assert [p.to_bytes() for p in ref] == [p.to_bytes() for p in pk]
+
+
+@needs_devices
+@pytest.mark.parametrize("fmt", [1, 2])
+def test_uneven_tile_rows_frame_emit(rng, fmt):
+    """The 1-D tile program's device-assembled payload (emit='frame') with
+    padded shards: the shards' payloads concatenate to the unsharded
+    frame payload."""
+    h, w, t, ntile = 80, 32, 3, 2
+    frames = _smooth_frames(rng, h, w, t)
+    cfg = EncoderConfig(width=w, height=h, gop_n=t, base_qp=26, search="full",
+                        format_version=fmt, chroma_qp_offset=2 if fmt >= 2 else 0)
+    ref_pk, _ = GopEngine(cfg).encode_gop(frames, 0)
+
+    mesh = Mesh(np.array(jax.devices()[:ntile]), ("tile",))
+    y = jnp.asarray(np.stack([f.y for f in frames]).astype(np.uint8))
+    cb = jnp.asarray(np.stack([f.cb for f in frames]).astype(np.uint8))
+    cr = jnp.asarray(np.stack([f.cr for f in frames]).astype(np.uint8))
+    outs = tiles.encode_gop_tiled(
+        y, cb, cr, 26, mesh=mesh, rc="none",
+        block_words=entropy.BLOCK_WORDS_MAX,
+        cap_words=entropy.max_words(tiles.shard_mb_rows(5, ntile) * w // 16),
+        target_bits=0, fmt=fmt, cqpo=cfg.chroma_qp_offset,
+    )
+    bits = np.asarray(outs["bits"])
+    words = np.asarray(outs["words"])
+    # the padding MB row adds no inter MB either
+    assert int(np.asarray(outs["n_inter"]).sum()) <= (t - 1) * 5 * w // 16
+    for k in range(t):
+        payload, nbits = tiles.bit_concat(
+            [(words[s, k], int(bits[s, k])) for s in range(ntile)]
+        )
+        assert nbits == ref_pk[k].payload_bits
+        assert payload == ref_pk[k].payload

@@ -1,24 +1,26 @@
 """Per-layer device time of the GOP-resident encode, from a profiler trace.
 
-    python tools/trace_layers.py [--out .smoke_work/trace] [--reps 1]
+    python tools/trace_layers.py [--out .smoke_work/trace]
 
 For each configuration (1080p GOP=30 qp30 and 4K GOP=8 qp30; full search,
 format 1, span-string emit — what GopEngine runs for `cli encode` with
-defaults) the GOP program is compiled and run once untraced, then `--reps`
-device-resident GOPs are traced with jax.profiler. Device events are
-attributed to the engine's jax.named_scope layers (me, mc, code_plane,
-block_pack, chunk_merge; the rest is "other") through the op_name metadata
-of their hlo_op in the compiled program's HLO text.
+defaults) the GOP program is compiled, run once to warm up, timed over
+TIMED_GOPS device-resident GOPs, then TRACED_GOPS more are traced with
+jax.profiler. Device events are attributed to the engine's jax.named_scope
+layers (me, mc, code_plane, block_pack, chunk_merge; the rest is "other")
+through the op_name metadata of their hlo_op in the compiled program's HLO
+text.
 
 Prints one JSON line per configuration: device kind and the card's power
-limit, the untraced and traced wall ms/frame, ms/frame per layer (sum of
-device event durations / frames), the device busy share of the traced
-window (union of device events over the host wall of the window), which
+limit, the untraced and traced wall ms/frame, the device ms/frame in all
+and per layer (sum of device event durations / frames), the untraced idle
+(untraced wall - device time) per frame and per full-search step, the
+device busy share of the traced window, the memory copies per GOP, which
 HLO operations carry the 8x8 transform products, and the costliest device
 and host events. Device events inside a CUDA graph (XLA command buffer)
-show as one command_buffer event; run with
-XLA_FLAGS=--xla_gpu_enable_command_buffer= to attribute every kernel. The
-raw traces stay under --out for offline reading.
+show as one command_buffer event; run again with
+XLA_FLAGS=--xla_gpu_enable_command_buffer= to attribute every kernel to
+its layer. The raw traces stay under --out for offline reading.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 LAYERS = ("chunk_merge", "block_pack", "code_plane", "mc", "me")
 CONFIGS = (("1080p_gop30_qp30", 1080, 1920, 30, 30),
            ("4k_gop8_qp30", 2160, 3840, 8, 30))
+TIMED_GOPS = 5
+TRACED_GOPS = 2
 
 
 def op_names(hlo_text: str) -> dict[str, str]:
@@ -76,13 +80,14 @@ def layer_of(op_name: str) -> str:
 
 
 def reduce_trace(path: str, names: dict[str, str]):
-    """(per-layer device ns, busy ns, top device events, top host events).
-    Device events without an hlo_op (copies, syncs) count as "other"."""
+    """(per-layer device ns, busy ns, device event counts by name, top
+    device events, top host events). Device events without an hlo_op
+    (copies, syncs) count as "other"."""
     from jax.profiler import ProfileData
 
     pd = ProfileData.from_file(path)
     per_layer: dict[str, int] = {}
-    intervals, top, host = [], {}, {}
+    intervals, top, host, counts = [], {}, {}, {}
     for plane in pd.planes:
         on_device = plane.name.startswith("/device:")
         for line in plane.lines:
@@ -93,6 +98,7 @@ def reduce_trace(path: str, names: dict[str, str]):
                     n, t = host.get(key, (0, 0))
                     host[key] = (n + 1, t + dur)
                     continue
+                counts[ev.name] = counts.get(ev.name, 0) + 1
                 op = dict(ev.stats).get("hlo_op", "")
                 layer = layer_of(names.get(op, ""))
                 per_layer[layer] = per_layer.get(layer, 0) + dur
@@ -112,7 +118,7 @@ def reduce_trace(path: str, names: dict[str, str]):
         return [(name, n, round(t / 1e6, 3))
                 for name, (n, t) in sorted(d.items(), key=lambda kv: -kv[1][1])[:k]]
 
-    return per_layer, busy, ranked(top, 25), ranked(host, 25)
+    return per_layer, busy, counts, ranked(top, 25), ranked(host, 25)
 
 
 def transform_ops(hlo_text: str) -> list[str]:
@@ -134,7 +140,6 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=".smoke_work/trace",
                     help="trace directory (xplane files are tens of MB)")
-    ap.add_argument("--reps", type=int, default=1)
     a = ap.parse_args()
 
     import jax
@@ -165,29 +170,40 @@ def main() -> int:
         compile_s = time.perf_counter() - t0
         jax.block_until_ready(encode_gop_jit(y, cb, cr, qp, **kw))
         t0 = time.perf_counter()
-        for _ in range(a.reps):
-            jax.block_until_ready(encode_gop_jit(y, cb, cr, qp, **kw))
-        untraced_ns = (time.perf_counter() - t0) * 1e9
+        for _ in range(TIMED_GOPS):
+            out = encode_gop_jit(y, cb, cr, qp, **kw)
+        jax.block_until_ready(out)
+        untraced_ms = (time.perf_counter() - t0) * 1e3 / (TIMED_GOPS * gop)
         outdir = os.path.join(a.out, name)
         t0 = time.perf_counter()
         with jax.profiler.trace(outdir):
-            for _ in range(a.reps):
+            for _ in range(TRACED_GOPS):
                 jax.block_until_ready(encode_gop_jit(y, cb, cr, qp, **kw))
         window_ns = (time.perf_counter() - t0) * 1e9
         path = sorted(glob.glob(os.path.join(outdir, "**", "*.xplane.pb"),
                                 recursive=True))[-1]
-        per_layer, busy, top, host = reduce_trace(path, op_names(hlo))
-        frames = gop * a.reps
+        per_layer, busy, counts, top, host = reduce_trace(path, op_names(hlo))
+        frames = gop * TRACED_GOPS
+        device_ms = sum(per_layer.values()) / 1e6 / frames
+        # full-search steps: launches of the scan body's costliest kernel
+        me_steps = max((n for k, n, _ in top if k.startswith("me:")),
+                       default=0) / frames
         print(json.dumps({
             "config": name, "device_kind": dev.device_kind, "card": card,
             "xla_flags": os.environ.get("XLA_FLAGS", ""),
             "compile_s": round(compile_s, 2),
-            "untraced_ms_per_frame": round(untraced_ns / 1e6 / frames, 3),
+            "untraced_ms_per_frame": round(untraced_ms, 3),
             "window_ms_per_frame": round(window_ns / 1e6 / frames, 3),
-            "device_ms_per_frame": round(sum(per_layer.values()) / 1e6 / frames, 3),
+            "device_ms_per_frame": round(device_ms, 3),
             "ms_per_frame": {k: round(v / 1e6 / frames, 3)
                              for k, v in sorted(per_layer.items())},
+            "idle_ms_per_frame": round(untraced_ms - device_ms, 3),
+            "me_steps_per_frame": round(me_steps, 1),
+            "idle_us_per_me_step": (round((untraced_ms - device_ms) * 1e3
+                                          / me_steps, 2) if me_steps else None),
             "busy_share": round(busy / window_ns, 4),
+            "memcpy_per_gop": {k: n / TRACED_GOPS for k, n in sorted(counts.items())
+                               if k.startswith("Memcpy")},
             "transform_ops": transform_ops(hlo),
             "top_device_events": top,
             "top_host_events": host,

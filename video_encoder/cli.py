@@ -353,6 +353,7 @@ def _encode_sharded(cfg, frames, fo, n_frames, devices, tile, verbose,
     from .codec.golden import Frame
     from .parallel.gop_parallel import ShardedGopEncoder
     from .parallel.mesh import make_codec_mesh
+    from .parallel.tiles import shard_mb_rows
     from .pipeline.gop_engine import GopEngine
 
     devices = devices or (len(jax.devices()) // tile * tile)
@@ -362,10 +363,7 @@ def _encode_sharded(cfg, frames, fo, n_frames, devices, tile, verbose,
     mesh = make_codec_mesh(gop_devices=n_gop_dev, tile_devices=tile)
     if tile > 1 and cfg.search != "full":
         raise ValueError("--tile needs --search full (haloed full search)")
-    mb_rows = -(-cfg.height // 16)
-    if mb_rows % tile:
-        raise ValueError(f"--tile {tile} needs the frame's {mb_rows} MB rows "
-                         f"to divide into {tile} equal row shards")
+    shard_mb_rows(-(-cfg.height // 16), tile)
     senc = ShardedGopEncoder(cfg, mesh=mesh)
     eng = GopEngine(cfg)  # leftover GOPs that don't fill a device batch
     mux = OrderedMux(fo, cfg, n_frames)

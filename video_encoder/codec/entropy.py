@@ -427,9 +427,19 @@ def _pack_blocks(levels, dc_pred, fmt: int, block_words: int):
     return w, b, (b > 32 * block_words).any()
 
 
+def _keep_mbs(piece_words, piece_bits, mb_valid):
+    """Empty the [n_mbs, 8] pieces of every MB outside mb_valid ([nby, nbx]
+    bool; None keeps all): the MB rows that only pad a tile shard then add
+    no bits to the concatenation."""
+    if mb_valid is None:
+        return piece_words, piece_bits
+    m = mb_valid.reshape(-1, 1)
+    return jnp.where(m[..., None], piece_words, 0), jnp.where(m, piece_bits, 0)
+
+
 def _frame_pieces_v2(
     levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame, is_inter,
-    dy, dx, block_words,
+    dy, dx, block_words, mb_valid=None,
 ):
     """v2 twin of _frame_pieces: per-MB [8, W] word strings + bit counts
     (header, Y00, Y01, Y10, Y11, Cb, Cr, empty)."""
@@ -476,6 +486,7 @@ def _frame_pieces_v2(
         ],
         axis=1,
     )
+    piece_words, piece_bits = _keep_mbs(piece_words, piece_bits, mb_valid)
     mb_bits = piece_bits[:, :7].sum(axis=1)
     return piece_words, piece_bits, mb_bits, ovf_h | ovf_y | ovf_cb | ovf_cr
 
@@ -491,6 +502,7 @@ def pack_frame_planes_v2(
     dx: jnp.ndarray,
     block_words: int,
     n_words: int,
+    mb_valid=None,
 ):
     """pack_frame_planes for format v2 (SPEC.md §12). Bit-exact with the
     golden v2 sequential writer (tests/test_format_v2.py)."""
@@ -498,7 +510,7 @@ def pack_frame_planes_v2(
     n_mbs = nby * nbx
     piece_words, piece_bits, mb_bits, ovf = _frame_pieces_v2(
         levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame, is_inter,
-        dy, dx, block_words,
+        dy, dx, block_words, mb_valid,
     )
     words, total_bits = tree_concat(
         piece_words.reshape(n_mbs * 8, block_words),
@@ -511,7 +523,7 @@ def pack_frame_planes_v2(
 
 def _frame_pieces(
     levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame, is_inter,
-    dy, dx, block_words,
+    dy, dx, block_words, mb_valid=None,
 ):
     """Shared v1 piece construction: per-MB [8, W] word strings + bit counts
     in the piece order header, Y00, Y01, Y10, Y11, Cb, Cr, (empty)."""
@@ -553,6 +565,7 @@ def _frame_pieces(
         ],
         axis=1,
     )
+    piece_words, piece_bits = _keep_mbs(piece_words, piece_bits, mb_valid)
     mb_bits = piece_bits[:, :7].sum(axis=1)
     return piece_words, piece_bits, mb_bits, ovf_h | ovf_y | ovf_cb | ovf_cr
 
@@ -568,6 +581,7 @@ def pack_frame_planes(
     dx: jnp.ndarray,
     block_words: int,
     n_words: int,
+    mb_valid=None,
 ):
     """pack_frame_blocked on per-plane level arrays (no blocks6 interleave).
 
@@ -581,7 +595,7 @@ def pack_frame_planes(
     n_mbs = nby * nbx
     piece_words, piece_bits, mb_bits, ovf = _frame_pieces(
         levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame, is_inter,
-        dy, dx, block_words,
+        dy, dx, block_words, mb_valid,
     )
     words, total_bits = tree_concat(
         piece_words.reshape(n_mbs * 8, block_words),
@@ -688,7 +702,7 @@ def _pieces_to_chunks(piece_words: jnp.ndarray, piece_bits: jnp.ndarray):
 
 def pack_frame_chunks(
     levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame, is_inter,
-    dy, dx, block_words: int,
+    dy, dx, block_words: int, mb_valid=None,
 ):
     """v1 pack emitting chunk strings: (chunk_words [C, cw], chunk_bits [C],
     mb_bits [nby, nbx], ovf). The frame payload is the host bit-concat of
@@ -698,7 +712,7 @@ def pack_frame_chunks(
     with jax.named_scope("block_pack"):
         piece_words, piece_bits, mb_bits, ovf = _frame_pieces(
             levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame, is_inter,
-            dy, dx, block_words,
+            dy, dx, block_words, mb_valid,
         )
     with jax.named_scope("chunk_merge"):
         cwords, cbits = _pieces_to_chunks(
@@ -709,14 +723,14 @@ def pack_frame_chunks(
 
 def pack_frame_chunks_v2(
     levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame, is_inter,
-    dy, dx, block_words: int,
+    dy, dx, block_words: int, mb_valid=None,
 ):
     """v2/v3-syntax twin of pack_frame_chunks."""
     nby, nbx = qp_delta.shape
     with jax.named_scope("block_pack"):
         piece_words, piece_bits, mb_bits, ovf = _frame_pieces_v2(
             levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame, is_inter,
-            dy, dx, block_words,
+            dy, dx, block_words, mb_valid,
         )
     with jax.named_scope("chunk_merge"):
         cwords, cbits = _pieces_to_chunks(

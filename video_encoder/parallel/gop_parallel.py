@@ -23,6 +23,7 @@ from ..codec.bitstream import FramePacket
 from ..codec.config import EncoderConfig
 from ..codec.golden import Frame
 from .mesh import make_codec_mesh
+from .tiles import shard_mb_rows
 from ..pipeline.gop_engine import encode_gop_jit, _bucket, _block_words_for_qp
 
 
@@ -102,7 +103,8 @@ class ShardedGopEncoder:
         cb = jnp.asarray(np.stack([[f.cb for f in g] for g in gops]).astype(np.uint8))
         cr = jnp.asarray(np.stack([[f.cr for f in g] for g in gops]).astype(np.uint8))
         ntile = self.n_tile_devices
-        n_mbs = (y.shape[2] // spec.MB) * (y.shape[3] // spec.MB) // ntile
+        n_mbs = (y.shape[3] // spec.MB) * (
+            shard_mb_rows(y.shape[2] // spec.MB, ntile))
 
         def run(xl: bool):
             if xl:

@@ -33,6 +33,43 @@ HALO_Y = spec.SEARCH_R  # 16 luma halo rows
 HALO_C = spec.BLK       # 8 chroma halo rows
 
 
+def shard_mb_rows(mb_rows: int, ntile: int) -> int:
+    """MB rows per tile shard: the frame's rows split into ntile equal
+    shards, the last one padded. Every shard must hold a frame row, because
+    a shard extends the frame's bottom edge from its own rows."""
+    per = -(-mb_rows // ntile)
+    if per * (ntile - 1) >= mb_rows:
+        raise ValueError(f"{mb_rows} MB rows cannot fill {ntile} row shards")
+    return per
+
+
+def _pad_to_shards(y, cb, cr, ntile: int):
+    """Edge-pad the frame rows (axis -2) to ntile equal shards of whole MB
+    rows. Returns the planes and the frame's MB rows, or None for the
+    latter when the rows split evenly and nothing was padded."""
+    mb_rows = y.shape[-2] // spec.MB
+    per = shard_mb_rows(mb_rows, ntile)
+    if per * ntile == mb_rows:
+        return y, cb, cr, None
+
+    def pad(p, rows):
+        widths = [(0, 0)] * p.ndim
+        widths[-2] = (0, rows - p.shape[-2])
+        return jnp.pad(p, widths, mode="edge")
+
+    n = per * ntile
+    return (pad(y, n * spec.MB), pad(cb, n * spec.BLK), pad(cr, n * spec.BLK),
+            mb_rows)
+
+
+def _edge_rows(plane, n):
+    """Rows n and on repeat row n-1: the frame's bottom edge carried over
+    the rows that pad the last shard, as pad_ref extends it past the
+    frame."""
+    last = jax.lax.dynamic_slice_in_dim(plane, n - 1, 1, 0)
+    return jnp.where(jnp.arange(plane.shape[0])[:, None] < n, plane, last)
+
+
 def exchange_halo(plane, halo, axis_name, axis: int = 0):
     """[h, w] shard -> extended by 2*halo along `axis` with neighbor strips
     via ppermute.
@@ -235,7 +272,7 @@ def encode_frame_tile_traced(
     *, is_p, rc: str, block_words: int, cap_words: int,
     axis_name: str = "tile", ref_mode: str = "halo",
     fmt: int = 1, cqpo: int = 0, qbias: int = 8, qmat: bool = False,
-    islice: int = 0, emit: str = "frame",
+    islice: int = 0, emit: str = "frame", mb_rows: int | None = None,
 ):
     """Per-shard frame encode; cur_/ref_ planes are local row shards.
 
@@ -249,9 +286,19 @@ def encode_frame_tile_traced(
     is_p may be a python bool (static callers) or a traced scalar (the
     tile GOP scan): like the GOP scan, the I/P cond wraps ONLY the
     prediction stage, so code+pack compile once, outside the cond (see
-    gop_engine.code_pack_traced)."""
+    gop_engine.code_pack_traced).
+
+    mb_rows, when given, is the frame's MB row count and the shards carry
+    padding rows past it (_pad_to_shards): those MBs add no bits, and their
+    reconstruction repeats the frame's last row, so the next frame's
+    reference and halo equal the unsharded edge padding."""
     dc, icost = motion.intra_cost_and_dc(cur_y)
     nby, nbx = icost.shape
+    mb_valid = None
+    if mb_rows is not None:
+        n_valid = jnp.clip(mb_rows - jax.lax.axis_index(axis_name) * nby, 0, nby)
+        mb_valid = jnp.broadcast_to(jnp.arange(nby)[:, None] < n_valid,
+                                    (nby, nbx))
 
     def p_branch():
         return predict_p_tile_traced(
@@ -285,10 +332,11 @@ def encode_frame_tile_traced(
                  else entropy.pack_frame_chunks)
 
         def pack(ly, lcb, lcr, qpd, p, inter, dyv, dxv, bw, _cap):
-            return packc(ly, lcb, lcr, qpd, p, inter, dyv, dxv, bw)
+            return packc(ly, lcb, lcr, qpd, p, inter, dyv, dxv, bw, mb_valid)
     else:
-        pack = (entropy.pack_frame_planes_v2 if fmt >= 2
-                else entropy.pack_frame_planes)
+        pack = functools.partial(
+            entropy.pack_frame_planes_v2 if fmt >= 2
+            else entropy.pack_frame_planes, mb_valid=mb_valid)
 
     def code_pred(qps):
         return _code_frame(
@@ -353,6 +401,11 @@ def encode_frame_tile_traced(
     # chunks: bits is the per-span vector; the frame/RC total sums it first
     shard_bits = bits.sum() if emit == "chunks" else bits
     frame_bits = jax.lax.psum(shard_bits, axis_name)  # RC/stats over tiles
+    if mb_valid is not None:
+        is_inter = is_inter & mb_valid
+        rec_y = _edge_rows(rec_y, n_valid * spec.MB)
+        rec_cb = _edge_rows(rec_cb, n_valid * spec.BLK)
+        rec_cr = _edge_rows(rec_cr, n_valid * spec.BLK)
     return dict(
         words=words, bits=bits, frame_bits=frame_bits, ovf=ovf_p,
         n_inter=is_inter.sum().astype(jnp.int32),
@@ -365,6 +418,7 @@ def tile_gop_scan(
     *, rc, block_words, cap_words, target_bits, ref_mode="halo",
     fmt: int = 1, cqpo: int = 0, qbias: int = 8, vbv_bits: int = 0,
     qmat: bool = False, islice: int = 0, emit: str = "frame",
+    mb_rows: int | None = None,
 ):
     """Per-shard GOP scan over one GOP's local row shards [T, H/ntile, W].
 
@@ -379,7 +433,7 @@ def tile_gop_scan(
         cur_cr = xs["cr"].astype(jnp.int32)
         kw = dict(rc=rc, block_words=block_words, cap_words=cap_words,
                   fmt=fmt, cqpo=cqpo, qbias=qbias, qmat=qmat, islice=islice,
-                  emit=emit)
+                  emit=emit, mb_rows=mb_rows)
         # traced is_p: the I/P cond inside wraps only the prediction, so
         # the pack compiles once, outside any cond branch
         out = encode_frame_tile_traced(
@@ -425,8 +479,9 @@ def encode_gop_tiled(
 ):
     """GOP encode with frames row-sharded over the 'tile' mesh axis.
 
-    y_u8: [T, H, W] uint8 (H/16 divisible by tile devices). Output words/
-    bits are per-shard, P('tile') on their leading shard axis. v3 needs
+    y_u8: [T, H, W] uint8. MB rows that do not split evenly over the tile
+    devices are edge-padded (_pad_to_shards). Output words/bits are
+    per-shard, P('tile') on their leading shard axis. v3 needs
     intra slices (SPEC.md §13.3): classic v3's I-frame vertical intra chain
     crosses MB-row shard boundaries, but with islice dividing the per-shard
     MB rows every shard starts at a slice boundary and the chain resets
@@ -434,6 +489,7 @@ def encode_gop_tiled(
     and the tiled stream equals the unsharded one at the same islice.
     """
     ntile = mesh.shape["tile"]
+    y_u8, cb_u8, cr_u8, mb_rows = _pad_to_shards(y_u8, cb_u8, cr_u8, ntile)
     mb_rows_shard = y_u8.shape[1] // spec.MB // ntile
     if fmt >= 3 and (islice == 0 or mb_rows_shard % islice):
         raise ValueError(
@@ -443,7 +499,7 @@ def encode_gop_tiled(
     kw = dict(rc=rc, block_words=block_words, cap_words=cap_words,
               target_bits=target_bits, ref_mode=ref_mode, fmt=fmt,
               cqpo=cqpo, qbias=qbias, vbv_bits=vbv_bits, qmat=qmat,
-              islice=islice, emit=emit)
+              islice=islice, emit=emit, mb_rows=mb_rows)
 
     def per_shard(y, cb, cr):
         outs = tile_gop_scan(y, cb, cr, base_qp, **kw)
@@ -479,8 +535,8 @@ def encode_gop_batch_2d(
     shard_map shards the GOP batch over 'gop' AND every frame's MB rows
     over 'tile' simultaneously.
 
-    y_u8: [G, T, H, W] uint8, G divisible by mesh 'gop' size, H/16 by the
-    'tile' size. Each (gop, tile) device runs the tile scan (halo ppermute +
+    y_u8: [G, T, H, W] uint8, G divisible by mesh 'gop' size; MB rows are
+    edge-padded to split evenly over 'tile' (_pad_to_shards). Each (gop, tile) device runs the tile scan (halo ppermute +
     psum ride the 'tile' axis only) lax.map'd over its local GOPs; the
     'gop' axis carries no collectives — GOPs are closed under prediction.
     Outputs: words [G, ntile, T, cap/ntile], bits/qp/ovf [G, ntile, T]
@@ -488,6 +544,8 @@ def encode_gop_batch_2d(
     v3 needs islice dividing the per-shard MB rows (SPEC.md §13.3, same
     rule as encode_gop_tiled).
     """
+    y_u8, cb_u8, cr_u8, mb_rows = _pad_to_shards(
+        y_u8, cb_u8, cr_u8, mesh.shape["tile"])
     mb_rows_shard = y_u8.shape[2] // spec.MB // mesh.shape["tile"]
     if fmt >= 3 and (islice == 0 or mb_rows_shard % islice):
         raise ValueError(
@@ -497,7 +555,7 @@ def encode_gop_batch_2d(
     kw = dict(rc=rc, block_words=block_words, cap_words=cap_words,
               target_bits=target_bits, ref_mode=ref_mode, fmt=fmt,
               cqpo=cqpo, qbias=qbias, vbv_bits=vbv_bits, qmat=qmat,
-              islice=islice, emit=emit)
+              islice=islice, emit=emit, mb_rows=mb_rows)
 
     def per_device(y, cb, cr):
         def one(args):
